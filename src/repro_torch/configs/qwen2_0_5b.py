@@ -16,5 +16,6 @@ CONFIG = ModelConfig(
     qkv_bias=True,
     rope_theta=1e6,
     sliding_window=4096,
+    tie_embeddings=True,
     source="arXiv:2407.10671",
 )

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from . import dude_update as _du
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import ref
@@ -41,10 +42,32 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return out
 
 
+def dude_round_apply(cm: torch.Tensor, sm: torch.Tensor, fresh: torch.Tensor,
+                     g_workers: torch.Tensor, inflight: torch.Tensor, g_bar: torch.Tensor,
+                     w: torch.Tensor, slots: tuple = (),
+                     bias_corr: Optional[torch.Tensor] = None, *, kind: str = "sgd",
+                     hp: tuple = (("lr", 0.0),)):
+    """One DuDe round fused with the optimizer step on flat slabs, in
+    place: fresh [n,P] f32/bf16, g_workers/inflight [n,P] f32/bf16, g_bar,
+    w and slots [P] f32, masks [n], AdamW's bias corrections [2].  Returns
+    ``(g_workers, inflight, g_bar, w, slots)``, the inputs updated; the port
+    of K1 ``dude_round_apply_pallas``."""
+    hp = dict(hp)
+    if fresh.device.type == "cpu":
+        return ref.dude_round_apply_ref(cm, sm, fresh, g_workers, inflight, g_bar, w,
+                                        slots, bias_corr, kind=kind, hp=hp)
+    _du.launch(cm, sm, fresh, g_workers, inflight, g_bar, w, tuple(slots), bias_corr,
+               kind=kind, hp=hp)
+    dude_round_apply.launches += 1
+    return g_workers, inflight, g_bar, w, tuple(slots)
+
+
 flash_attention.launches = 0
 flash_decode.launches = 0
+dude_round_apply.launches = 0
 
 
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_decode.launches = 0
+    dude_round_apply.launches = 0

@@ -1,16 +1,18 @@
 """Grouped-query attention with RoPE, qk-norm, QKV bias, sliding window and
-KV caches: the serving path of ``repro.models.attention``.
+KV caches (``repro.models.attention``).
 
 Execution paths:
-  * ``attention_ref``  — naive O(S^2) materialized scores (plain version).
-  * ``decode_attend``  — attention of a few tokens against the cache (plain
-                         version of the reference's serving math).
-  * ``attention_apply`` with a cache — the serving path: a prompt at cache
-    index 0 runs ``ops.flash_attention`` over its own k/v (the port of K2),
-    one token runs ``ops.flash_decode`` over the cache (the port of K5).
-
-The cache-free training path (``attention_chunked``) waits for the
-training slice.
+  * ``attention_ref``      — naive O(S^2) materialized scores (plain version).
+  * ``attention_chunked``  — online softmax over KV chunks, each chunk under
+                             ``torch.utils.checkpoint``: the training path,
+                             plain PyTorch with autograd, as the reference's
+                             is jnp (K2 has no backward in the reference).
+  * ``decode_attend``      — attention of a few tokens against the cache
+                             (plain version of the reference's serving math).
+  * ``attention_apply`` without a cache runs ``attention_chunked``; with a
+    cache it is the serving path: a prompt at cache index 0 runs
+    ``ops.flash_attention`` over its own k/v (the port of K2), one token
+    runs ``ops.flash_decode`` over the cache (the port of K5).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import math
 from typing import Optional
 
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init
@@ -37,6 +41,7 @@ class AttnConfig:
     qk_norm: bool = False
     rope_theta: float = 1e4
     sliding_window: Optional[int] = None
+    chunk: int = 512
 
 
 def attention_init(gen: torch.Generator, cfg: AttnConfig, device=None):
@@ -88,6 +93,63 @@ def attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return torch.einsum("bhqk,bkhd->bqhd", w, vx).to(q.dtype)
 
 
+# ------------------------------------------------------ chunked online softmax
+
+def _chunk_step(m, l, acc, q32, kci, vci, ci: int, chunk: int, Sk: int, causal: bool,
+                window: Optional[int]):
+    """One KV chunk of the online softmax: (m, l, acc) -> updated."""
+    groups = q32.shape[2] // kci.shape[2]
+    kx = kci.repeat_interleave(groups, dim=2).float()      # [B, chunk, H, hd]
+    vx = vci.repeat_interleave(groups, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, kx)            # [B, H, Sq, chunk]
+    Sq = q32.shape[1]
+    kpos = ci * chunk + torch.arange(chunk, device=q32.device)[None, :]
+    qpos = torch.arange(Sq, device=q32.device)[:, None]
+    mask = (kpos <= Sk - 1).expand(Sq, chunk)              # padding mask
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, vx)
+    acc_new = acc * alpha.transpose(1, 2)[..., None] + pv
+    return m_new, l_new, acc_new
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                      chunk: int = 512):
+    """Flash-style online softmax over KV chunks (plain PyTorch).
+
+    Each chunk's step runs under ``torch.utils.checkpoint``, as the
+    reference checkpoints its scan body: the backward recomputes the score
+    tile of a chunk instead of saving every chunk's, so both passes hold
+    O(Sq * chunk) scores.  Equal to ``attention_ref`` up to float
+    associativity.
+    """
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    chunk = min(chunk, Sk)
+    n_chunks = -(-Sk // chunk)
+    pad = n_chunks * chunk - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    q32 = q.float() / math.sqrt(hd)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    for ci in range(n_chunks):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        m, l, acc = checkpoint(_chunk_step, m, l, acc, q32, k[:, sl], v[:, sl], ci, chunk,
+                               Sk, causal, window, use_reentrant=False)
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
 def decode_attend(q, cache, length: int, *, window: Optional[int] = None):
     """Attention of q [B, Sq, H, hd] (the last Sq of ``length`` positions)
     against the cache [B, Smax, K, hd], masked to positions < ``length``.
@@ -134,19 +196,25 @@ def update_cache(cache, k: torch.Tensor, v: torch.Tensor, index: int):
 # ----------------------------------------------------------- full attn module
 
 def attention_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
-                    *, cache, cache_index: int, use_window: bool = False):
-    """Self-attention block body on the serving path.  Returns
-    (out, cache), the cache updated in place.
+                    *, cache=None, cache_index: int = 0, use_window: bool = False):
+    """Self-attention block body.  Returns (out, cache), the cache updated
+    in place (``None`` without a cache).
 
-    A prompt written at ``cache_index`` 0 attends causally over its own k/v
-    only, which is what the reference's masked attention over the
-    zero-filled cache computes; the k/v are read after the cast to the cache
-    dtype, as the reference reads them from the cache.  A single token
-    attends over the first ``cache_index + 1`` cache positions.
+    Without a cache (training) the sequence attends causally to itself
+    through ``attention_chunked``.  With one, a prompt written at
+    ``cache_index`` 0 attends causally over its own k/v only, which is what
+    the reference's masked attention over the zero-filled cache computes;
+    the k/v are read after the cast to the cache dtype, as the reference
+    reads them from the cache.  A single token attends over the first
+    ``cache_index + 1`` cache positions.
     """
     window = cfg.sliding_window if use_window else None
     q, k, v = _project_qkv(p, x, positions, cfg)
     B, S = x.shape[:2]
+    if cache is None:
+        out = attention_chunked(q, k, v, causal=True, window=window, chunk=cfg.chunk)
+        out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+        return dense(p["wo"], out), None
     update_cache(cache, k, v, cache_index)
     if cache_index == 0:
         kc, vc = k.to(cache["k"].dtype), v.to(cache["v"].dtype)

@@ -1,9 +1,10 @@
 """Model configuration shared by model code and the per-arch config files.
 
 The fields of ``repro.models.config.ModelConfig`` that the port's dense
-serving path reads, with ``dtype`` a torch dtype.  A model is a stack of
-``num_layers`` attention + gated-MLP blocks with tied embeddings; the other
-block kinds and their fields come with the slices that port them.
+serving and training paths read, with ``dtype`` and ``dude_buffer_dtype``
+torch dtypes.  A model is a stack of ``num_layers`` attention + gated-MLP
+blocks, with its LM head tied to the embedding or a dense of its own; the
+other block kinds and their fields come with the slices that port them.
 """
 
 from __future__ import annotations
@@ -28,8 +29,14 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e4
     sliding_window: Optional[int] = None
+    tie_embeddings: bool = False        # the head is the embedding (else its own dense)
+    attn_chunk: int = 512               # KV chunk of the training attention
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16  # compute and KV-cache dtype
+    remat: bool = True                  # recompute each layer in the backward
+    ce_chunk: int = 0                   # LM head + CE in sequence chunks (0 = off)
+    n_workers: int = 16                 # DuDe workers of this arch
+    dude_buffer_dtype: torch.dtype = torch.bfloat16   # engine slab dtype
     source: str = ""                    # citation of the published config
 
     @property
@@ -49,5 +56,8 @@ class ModelConfig:
             d_ff=512,
             vocab_size=512,
             sliding_window=64 if self.sliding_window else None,
+            attn_chunk=32,
             dtype=torch.float32,
+            remat=False,
+            n_workers=4,
         )

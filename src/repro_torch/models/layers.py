@@ -17,9 +17,9 @@ import torch.nn.functional as F
 # ----------------------------------------------------------------- init utils
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
-               device=None):
-    p = {"kernel": torch.randn((d_in, d_out), generator=gen, device=device)
-         / math.sqrt(d_in)}
+               scale=None, device=None):
+    w = torch.randn((d_in, d_out), generator=gen, device=device)
+    p = {"kernel": w / math.sqrt(d_in) if scale is None else w * scale}
     if bias:
         p["bias"] = torch.zeros((d_out,), device=device)
     return p

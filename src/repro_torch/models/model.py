@@ -1,8 +1,10 @@
-"""Language-model wrapper for the serving path: embeddings, the layer
-stack, the head, ``prefill`` and ``decode_step`` (``repro.models.model``).
+"""Language-model wrapper: embeddings, the layer stack, the head, the loss,
+and the entry points of training (``forward``, ``loss_fn``) and serving
+(``prefill``, ``decode_step``) (``repro.models.model``).
 
-Params are a dict: ``embed.embedding`` [V, d] (tied: it is also the
-head), ``ln_f.scale`` and ``layers`` (a list of per-layer block dicts).
+Params are a dict: ``embed.embedding`` [V, d] (with tied embeddings it is
+also the head), ``head.kernel`` [d, V] (untied only), ``ln_f.scale`` and
+``layers`` (a list of per-layer block dicts).
 Every leaf is an f32 master; ``working_params`` makes the copy the steps
 compute with.
 """
@@ -10,9 +12,10 @@ compute with.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
-from .layers import embed, embedding_init, rmsnorm, rmsnorm_init
+from .layers import dense, dense_init, embed, embedding_init, rmsnorm, rmsnorm_init
 from .transformer import block_init, stack_apply, stack_caches
 
 _MATMUL_LEAVES = ("kernel", "bias", "embedding")
@@ -20,11 +23,15 @@ _MATMUL_LEAVES = ("kernel", "bias", "embedding")
 
 def lm_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """Random f32 params from ``gen`` (which must live on ``device``)."""
-    return {
+    params = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, device),
         "layers": [block_init(gen, cfg, device) for _ in range(cfg.num_layers)],
         "ln_f": rmsnorm_init(cfg.d_model, device),
     }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, scale=0.02,
+                                    device=device)
+    return params
 
 
 def working_params(params, dtype: torch.dtype):
@@ -46,8 +53,69 @@ def _embed_tokens(params, tokens, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _head(params, x) -> torch.Tensor:
-    """Tied LM head: ``x @ embedding.T`` in ``x.dtype``."""
+    """LM head in ``x.dtype``: its own dense, or ``x @ embedding.T`` when
+    the embeddings are tied (no ``head`` params)."""
+    if "head" in params:
+        return dense(params["head"], x)
     return x @ params["embed"]["embedding"].T.to(x.dtype)
+
+
+def forward(params, batch: dict, cfg: ModelConfig, *, use_window: bool = False):
+    """Full-sequence forward of ``batch["tokens"]`` [B, S].  Returns
+    (logits [B, S, V] f32, aux loss); a dense model has no aux loss."""
+    h = _embed_tokens(params, batch["tokens"], cfg)
+    B, S = h.shape[:2]
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    h, _ = stack_apply(params["layers"], h, positions, cfg, use_window=use_window)
+    h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+    return _head(params, h).float(), torch.zeros((), device=h.device)
+
+
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor):
+    """Returns (sum of -log p over the labels >= 0, their count)."""
+    mask = (labels >= 0).float()
+    lp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(lp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return -torch.sum(ll * mask), torch.sum(mask)
+
+
+def _chunk_loss(params, hs, ls):
+    return _masked_ce(_head(params, hs).float(), ls)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig):
+    """Next-token cross-entropy with -1-masked labels.  Returns (total,
+    {"loss", "aux"}).
+
+    With ``cfg.ce_chunk > 0`` the head and the cross-entropy run over
+    sequence chunks, each under ``torch.utils.checkpoint``, so the
+    ``[T, V]`` logits are never held whole (forward or backward)."""
+    labels = batch["labels"]
+    if cfg.ce_chunk:
+        h = _embed_tokens(params, batch["tokens"], cfg)
+        B, S = h.shape[:2]
+        positions = torch.arange(S, device=h.device).expand(B, S)
+        h, _ = stack_apply(params["layers"], h, positions, cfg)
+        h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+        aux = torch.zeros((), device=h.device)
+        C = cfg.ce_chunk
+        nc = -(-S // C)
+        pad = nc * C - S
+        if pad:
+            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        tot = torch.zeros((), device=h.device)
+        cnt = torch.zeros((), device=h.device)
+        for c in range(nc):
+            s, n = checkpoint(_chunk_loss, params, h[:, c * C:(c + 1) * C],
+                              labels[:, c * C:(c + 1) * C], use_reentrant=False)
+            tot, cnt = tot + s, cnt + n
+        loss = tot / torch.clamp(cnt, min=1.0)
+    else:
+        logits, aux = forward(params, batch, cfg)
+        s, c = _masked_ce(logits, labels)
+        loss = s / torch.clamp(c, min=1.0)
+    return loss + aux, {"loss": loss, "aux": aux}
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,12 +1,17 @@
 """Block assembly for the dense ``"attn"`` layer kind, run as a plain loop
 over layers (the reference scans over period groups; with one layer kind
-per period a group is one layer).  MoE, SSM and hybrid kinds wait for a
+per period a group is one layer).  Without caches (training) each layer
+runs under ``torch.utils.checkpoint`` when ``cfg.remat`` is set, as the
+reference checkpoints each group.  MoE, SSM and hybrid kinds wait for a
 later slice.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import AttnConfig, attention_apply, attention_init, init_cache
 from .config import ModelConfig
@@ -30,8 +35,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, device=None):
     }
 
 
-def block_apply(params, x, positions, cfg: ModelConfig, *, cache, cache_index: int,
-                use_window: bool = False):
+def block_apply(params, x, positions, cfg: ModelConfig, *, cache=None,
+                cache_index: int = 0, use_window: bool = False):
     """Residual attention + MLP block.  Returns (x, cache)."""
     h, cache = attention_apply(
         params["attn"], rmsnorm(params["ln1"], x, cfg.norm_eps), positions,
@@ -49,9 +54,23 @@ def stack_caches(cfg: ModelConfig, batch: int, max_len: int,
             for _ in range(cfg.num_layers)]
 
 
-def stack_apply(layers: list, x, positions, cfg: ModelConfig, *, caches: list,
-                cache_index: int, use_window: bool = False):
-    """Run every layer in order.  Returns (x, caches), updated in place."""
+def _block_train(layer, x, positions, cfg: ModelConfig, use_window: bool):
+    return block_apply(layer, x, positions, cfg, use_window=use_window)[0]
+
+
+def stack_apply(layers: list, x, positions, cfg: ModelConfig, *,
+                caches: Optional[list] = None, cache_index: int = 0,
+                use_window: bool = False):
+    """Run every layer in order.  Returns (x, caches), the caches updated in
+    place (``None`` without caches)."""
+    if caches is None:
+        for layer in layers:
+            if cfg.remat:
+                x = checkpoint(_block_train, layer, x, positions, cfg, use_window,
+                               use_reentrant=False)
+            else:
+                x = _block_train(layer, x, positions, cfg, use_window)
+        return x, None
     for layer, cache in zip(layers, caches):
         x, _ = block_apply(layer, x, positions, cfg, cache=cache,
                            cache_index=cache_index, use_window=use_window)
